@@ -1,12 +1,14 @@
-"""navierstokes_parallel_tpu — a TPU-native incompressible Navier-Stokes framework.
+"""navierstokes_parallel_tpu — a GPU-accelerated incompressible Navier-Stokes
+framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 guilherme-webster/NavierStokes-parallel (a serial-C + CUDA 2D staggered-grid
 lid-driven-cavity solver): donor-cell momentum stencils, red-black SOR
 pressure-Poisson solver, adaptive CFL time stepping, Ghia et al. 1982
 validation, exact parameter-file / output-format compatibility — plus what
-the reference never had: a fully on-device convergence loop, Pallas VMEM
-kernels, multi-chip grid sharding over an ICI mesh, and checkpoint/resume.
+the reference never had: a fully on-device convergence loop, a CUDA SOR
+kernel that runs several sweeps per launch, multi-device grid sharding,
+and checkpoint/resume.
 """
 
 from .config import Params, load_params

@@ -1,6 +1,6 @@
 """Simulation configuration.
 
-`Params` is the TPU framework's equivalent of the reference's 15-line
+`Params` is the framework's equivalent of the reference's 15-line
 positional parameter file (reference: src/serial/io.c:12-59, format documented
 in parameters.txt:1-15).  It round-trips the exact ``.in`` format so the
 reference's ``tests/1.in``-``4.in`` and ``parameters.txt`` run unmodified,
@@ -93,7 +93,7 @@ class Params:
     max_it: int = 500
     n_print: int = 1
 
-    # TPU-specific knobs (not part of the .in format).
+    # Solver knobs (not part of the .in format).
     dtype: str = "float32"
     # Donor-cell upwind weight override.  The reference ties gamma to the
     # CFL number every step (main.c:92: gamma = max(u dt/dx, v dt/dy) —
@@ -112,18 +112,11 @@ class Params:
     # convergence) every K f32 sweeps; 0 disables refinement (see ops/sor.py).
     # Only used when dtype == float32 and jax x64 is enabled.
     sor_refine_every: int = 64
-    # Route every compute stage through plain jnp/XLA instead of the Pallas
-    # kernels.  Set by the GSPMD auto-sharded backend (parallel/gspmd.py):
-    # XLA's SPMD partitioner can shard any jnp op but would have to fully
-    # gather the operands of an opaque Pallas call.
+    # Route every compute stage through plain jnp/XLA instead of the CUDA
+    # SOR kernel (method "pallas_sor").  Set by the GSPMD auto-sharded
+    # backend (parallel/gspmd.py) and the batched ensemble: XLA's SPMD
+    # partitioner can shard any jnp op but not an opaque foreign call.
     disable_pallas: bool = False
-    # Storage/compute precision of the SOR inner stage (the f32 correction
-    # sweeps under the f64 refinement master, ops/sor.py).  "bfloat16" halves
-    # the inner stage's VMEM footprint and HBM traffic; the f64 defect
-    # re-baseline every K sweeps bounds the rounding, but the inner
-    # iteration stalls earlier, so measure before using (docs/performance.md
-    # records the measurements).  Applies to the Pallas/XLA inner routes.
-    sor_inner_dtype: str = "float32"
     # Sharded backend: local sweeps per cross-shard halo exchange in the
     # communication-avoiding deep-halo inner stage (parallel/deep_halo.py).
     # Each exchange carries a 2K-deep strip and buys K exact local sweeps
@@ -140,9 +133,9 @@ class Params:
     particles_per_cell: int = 3
     # Spectral method: direct DCT solves chained per f64 refinement pass,
     # with cheap f32 defect re-evaluation between them (ops/fft.py
-    # inner_direct).  >1 amortizes the f64 outer pass — software-emulated
-    # on TPU, it can rival the transform cost at large grids — at the price
-    # of overshooting convergence by up to s-1 solves.  Single-chip only;
+    # inner_direct).  >1 amortizes the f64 outer pass where it rivals the
+    # transform cost at large grids, at the price of overshooting
+    # convergence by up to s-1 solves.  Single-chip only;
     # the sharded pencil inner always runs 1 (its outer norms are psum'd).
     fft_solves_per_outer: int = 1
     # Multigrid: V-cycles chained per f64 refinement pass (the mg analogue
@@ -150,24 +143,23 @@ class Params:
     # chained cycles smooth the implicit f32 residual, so convergence costs
     # ~10% extra cycles at c=2 (measured 16->18 at 256^2, 31->34 at 512^2)
     # while the f64 outer passes HALVE — a net win wherever the
-    # TPU-emulated outer pass rivals the V-cycle cost (A/B with
+    # outer pass rivals the V-cycle cost (A/B with
     # scripts/step_breakdown.py before flipping).  Single-chip mg only; the
     # sharded mg inner keeps 1 (its outer norms are psum'd).
     mg_cycles_per_outer: int = 1
-    # MXU precision of the DCT matmul route ("highest" = full-f32 6-pass
-    # bf16 emulation, "high" = 3-pass, "default" = single bf16 pass).
-    # Lower precision cuts transform cost up to ~6x on the MXU; each direct
-    # solve reduces the defect less, so the refinement outer runs more
-    # solves — the convergence CONTRACT is unchanged (the outer's defect
-    # check is exact), only the solve count moves.  A/B on TPU before use;
-    # the rfft route ignores this (VPU butterflies are true f32).
+    # Matmul precision of the DCT matmul route ("highest" = full f32;
+    # "high" and "default" let an H100 round the operands to TF32).
+    # Lower precision cuts transform cost; each direct solve reduces the
+    # defect less, so the refinement outer runs more solves — the
+    # convergence CONTRACT is unchanged (the outer's defect check is
+    # exact), only the solve count moves.  Measure on the card before use;
+    # the rfft route ignores this (its butterflies are true f32).
     fft_precision: str = "highest"
     # Precision strategy of the refinement outer (defect + L2 + master
     # update, ops/sor.py).  "float64" is the reference-faithful default;
     # "compensated" replaces it with error-free two-float f32 arithmetic
-    # (ops/compensated.py) — same convergence contract, no f64 ops (which
-    # TPU software-emulates) and no global x64 requirement.  Measure before
-    # flipping the default (docs/performance.md).
+    # (ops/compensated.py) — same convergence contract, no f64 ops and no
+    # global x64 requirement.  Measure before flipping the default.
     outer_precision: str = "float64"
     # Obstacle cells (flag-field domains, Griebel et al. sect. 5.1 — the
     # reference has NO analogue): a static tuple of axis-aligned rectangles
@@ -176,7 +168,7 @@ class Params:
     # program as constants.  Velocity faces get no-slip, the pressure
     # operator drops solid neighbors per cell (ops/obstacles.py,
     # ops/masked.py); obstacle runs use the masked rb_sor/mg solvers
-    # (fft/cg/pallas_sor and the sharded backend reject them).
+    # (fft/cg/pallas_sor reject them; the sharded backend runs rb_sor).
     obstacles: tuple = ()
     # Optional analytic surfaces behind the rasterized obstacle cells, for
     # SECOND-ORDER boundary conditions (ghost-fluid interpolated
@@ -343,14 +335,6 @@ class Params:
             raise ValueError(
                 f"outer_precision must be 'float64' or 'compensated', got "
                 f"{self.outer_precision!r}")
-        if self.sor_inner_dtype not in ("float32", "bfloat16"):
-            # Validate at construction: a typo (or float64) would otherwise
-            # surface as a ZeroDivisionError in the tiled kernel's DMA
-            # alignment math or an obscure dtype error deep in jit tracing.
-            raise ValueError(
-                f"sor_inner_dtype must be 'float32' or 'bfloat16', got "
-                f"{self.sor_inner_dtype!r}"
-            )
 
     # -- derived quantities ------------------------------------------------
     @property

@@ -5,14 +5,14 @@ here is a JAX transform target, a whole n-step integration is a pure
 function of its inputs and `jax.grad` of any scalar loss w.r.t. the
 initial state, the lid speed, or the body force is exact — enabling
 gradient-based flow control, parameter estimation, and design
-optimization on TPU.
+optimization on the accelerator.
 
 Two pieces make it work:
 
 * **Adjoint pressure solve** (`pressure_solve_ift`): the production solvers
   iterate inside `lax.while_loop`, which has no reverse rule — and
-  unrolling thousands of SOR sweeps through AD would be absurd on TPU
-  anyway.  Instead the converged solve is wrapped in `jax.custom_vjp`
+  unrolling thousands of SOR sweeps through AD would be absurd on any
+  device anyway.  Instead the converged solve is wrapped in `jax.custom_vjp`
   using the implicit function theorem: A p = rhs with A the (symmetric)
   Neumann 5-point Laplacian, so the VJP of p w.r.t. rhs is just ANOTHER
   pressure solve, A lambda = p_bar — same converged machinery forward and
@@ -22,8 +22,8 @@ Two pieces make it work:
 * **Rematerialized time stepping** (`solve_n_steps`): `lax.scan` over a
   `jax.checkpoint`-wrapped step — activations for the backward pass are
   recomputed per step instead of stored, so gradient memory is O(1) in
-  the number of steps (HBM is the scarce resource; FLOPs are cheap on
-  the MXU/VPU).
+  the number of steps (device memory is the scarce resource; FLOPs are
+  cheap).
 
 Contract and scope:
 

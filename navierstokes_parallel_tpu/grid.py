@@ -2,7 +2,7 @@
 
 The reference allocates seven ragged ``double**`` grids with per-field shapes
 (src/serial/memory.c:3-26): p/res/RHS/F/G are (i_max+2, j_max+2), u is
-(i_max+1, j_max+2), v is (i_max+2, j_max+1).  On TPU we use *uniform*
+(i_max+1, j_max+2), v is (i_max+2, j_max+1).  Here we use *uniform*
 (i_max+2, j_max+2) padded arrays for every field (like the reference's CUDA
 path, src/parallel/main.cu:48-49): the extra row of u / column of v is never
 read or written, and uniform shapes let XLA fuse everything and keep one

@@ -905,7 +905,7 @@ def rb_growth_rate(Ra: float, *, Pr: float = 0.71, n: int = 32,
     `amp` is resolution-dependent, squeezed from both sides (both limits
     MEASURED, round 3/4): it must stay above the f32 storage +
     pressure-tolerance noise floor — 1e-4 flatlines a near-critical slow
-    mode at 64² on TPU (sigma +0.0002 instead of +0.026) while 1e-3
+    mode at 64² (sigma +0.0002 instead of +0.026) while 1e-3
     recovers it — yet small enough that the E1 window is still linear:
     at 32² over the default 35-unit horizon, 1e-3 saturates enough to
     bias the extrapolated Ra_c 2% low (1673 vs 1707.76) where 1e-4 gives

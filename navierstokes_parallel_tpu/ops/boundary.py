@@ -11,7 +11,7 @@ version and note the CUDA drift as a reference bug (see SURVEY.md §2.2).
 As pure functions these are static slice updates (`x.at[...].set(...)`),
 which XLA fuses into the surrounding step — the reference's precomputed
 border-point lists and 1D boundary kernels (src/parallel/main.cu:194-215,
-838-944) have no TPU analogue because no scatter machinery is needed.
+838-944) have no analogue here because no scatter machinery is needed.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Error-free-transformation (two-float) arithmetic for the refinement outer.
 
-TPU has no float64 hardware: XLA software-emulates every f64 op, so the
-refinement outer in ops/sor.py::_solve_pressure_refined — the per-K-sweeps
-f64 defect, L2 norm, and master-pressure update — can rival the cost of the
-f32 inner stage itself at large grids (scripts/step_breakdown.py measures
-the split).  The outer needs beyond-f32 precision in exactly two places:
+Where float64 runs far below the float32 rate, the refinement outer in
+ops/sor.py::_solve_pressure_refined — the per-K-sweeps f64 defect, L2 norm,
+and master-pressure update — can rival the cost of the f32 inner stage
+itself at large grids (scripts/step_breakdown.py measures the split).  The outer needs beyond-f32 precision in exactly two places:
 
   1. the master pressure accumulator `p += delta` (f32 rounding of the
      large-magnitude iterate is what the refinement exists to avoid, see
@@ -14,10 +13,11 @@ the split).  The outer needs beyond-f32 precision in exactly two places:
 
 Both are handled here with classic compensated (double-float) arithmetic on
 f32 pairs (hi, lo) — Knuth two_sum, Dekker split/two_prod (no FMA primitive
-is exposed; TPU VPU f32 add/mul are IEEE, which these algorithms require).
+is exposed; f32 add/mul must be IEEE-rounded, which these algorithms
+require).
 The pair carries ~48 mantissa bits, comfortably below the reference's 1e-4
-comparator contract and the eps*(||p0||+1.5) stopping rule's needs, at full
-f32 VPU rate instead of emulated-f64 rate.
+comparator contract and the eps*(||p0||+1.5) stopping rule's needs, in
+f32 arithmetic only.
 
 Key accuracy facts used by `residual_df` (the compensated defect):
 
@@ -30,8 +30,8 @@ Key accuracy facts used by `residual_df` (the compensated defect):
     error with eps SQUARED, i.e. a ~48-bit evaluation rounded to f32.
 
 No reference analogue: the reference runs f64 end-to-end on hardware that
-has it (src/serial/integration.c, src/parallel/main.cu).  This module is
-the TPU-native answer to the same precision requirement.
+has it (src/serial/integration.c, src/parallel/main.cu).  This module
+meets the same precision requirement without f64.
 """
 
 from __future__ import annotations

@@ -36,7 +36,7 @@ It plugs into the SAME mixed-precision refinement outer loop as SOR
 reference convergence test are unchanged — one V-cycle on the f32
 correction replaces K red-black sweeps.  `iterations` then counts V-cycles.
 All levels are static python structure, so the whole cycle jits into one
-fused program; everything runs on any backend (CPU/TPU, and under shard_map
+fused program; everything runs on any backend (CPU/GPU, and under shard_map
 it would need halo-aware ops — single-chip only for now).
 """
 
@@ -104,20 +104,7 @@ def _neighbor_sum(p, lvl: _Level, self_coef):
     )
 
 
-def _level_fits_vmem(shape) -> bool:
-    # the warm-start smoother kernel needs ~16 resident arrays; cap so its
-    # vmem_limit stays within what v5e actually provides (~64-100 MB)
-    ni, nj = shape
-    return 16 * ni * (-(-nj // 128) * 128) * 4 <= 72 * 1024 * 1024
-
-
-def _smooth(p, rhs, lvl: _Level, n_sweeps: int, omega: float = 1.0,
-            allow_kernel: bool = True):
-    if allow_kernel and jax.default_backend() == "tpu" \
-            and _level_fits_vmem(lvl.shape):
-        from .pallas import sor_kernel
-        return sor_kernel.warm_sweeps(p, rhs, n_sweeps, omega,
-                                      lvl.dx2_inv, lvl.dy2_inv)
+def _smooth(p, rhs, lvl: _Level, n_sweeps: int, omega: float = 1.0):
     red, black, self_coef = _masks(lvl.shape, lvl.dx2_inv, lvl.dy2_inv)
     coef = omega / (2.0 * (lvl.dx2_inv + lvl.dy2_inv))
 
@@ -147,9 +134,8 @@ def _lap(p, lvl: _Level):
 @functools.lru_cache(maxsize=None)
 def _injection_matrix(n_fine: int):
     """U (n_fine x n_fine/2) with ones at (2i, i), (2i+1, i): constant
-    prolongation as an MXU matmul (0.5*U^T is the full-weighting
-    restriction).  reshape/repeat formulations lower poorly on TPU lanes
-    (5x slower measured at 2048^2)."""
+    prolongation as a matmul (0.5*U^T is the full-weighting
+    restriction)."""
     import numpy as np
 
     m = n_fine // 2
@@ -161,8 +147,7 @@ def _injection_matrix(n_fine: int):
 
 def _restrict(r_fine, coarse_shape):
     """2x2 full-weighting average of the fine interior into a padded coarse
-    array (zeros elsewhere).  reduce_window lowers to the TPU's native
-    windowed reduction."""
+    array (zeros elsewhere)."""
     avg = 0.25 * lax.reduce_window(
         r_fine[1:-1, 1:-1], 0.0, lax.add, (2, 2), (2, 2), "VALID"
     )
@@ -171,36 +156,35 @@ def _restrict(r_fine, coarse_shape):
 
 def _prolong(e_coarse, fine_shape):
     """Piecewise-constant injection of the coarse interior onto the fine
-    interior (padded), as two MXU matmuls: e_f = U e_c U^T."""
+    interior (padded), as two matmuls: e_f = U e_c U^T.  HIGHEST
+    precision keeps them float32: a GPU's default would round the
+    correction to TF32."""
     interior = e_coarse[1:-1, 1:-1]
     ni, nj = fine_shape[0] - 2, fine_shape[1] - 2
     Ui = jnp.asarray(_injection_matrix(ni))
     Uj = jnp.asarray(_injection_matrix(nj))
-    up = Ui @ interior @ Uj.T
+    hp = lax.Precision.HIGHEST
+    up = jnp.matmul(jnp.matmul(Ui, interior, precision=hp), Uj.T,
+                    precision=hp)
     return jnp.zeros(fine_shape, e_coarse.dtype).at[1:-1, 1:-1].set(up)
 
 
 def v_cycle(p, rhs, levels: List[_Level], depth: int = 0,
-            nu1: int = 2, nu2: int = 2, coarse_sweeps: int = 32,
-            allow_kernel: bool = True):
-    """One V(nu1, nu2) cycle on A p = rhs at `depth`; returns improved p.
-    `allow_kernel=False` forces the jnp smoother (used when the cycle runs
-    on replicated data inside shard_map, where per-shard Pallas dispatch is
-    not wanted)."""
+            nu1: int = 2, nu2: int = 2, coarse_sweeps: int = 32):
+    """One V(nu1, nu2) cycle on A p = rhs at `depth`; returns improved p."""
     lvl = levels[depth]
     if depth == len(levels) - 1:
-        return _smooth(p, rhs, lvl, coarse_sweeps, allow_kernel=allow_kernel)
+        return _smooth(p, rhs, lvl, coarse_sweeps)
 
-    p = _smooth(p, rhs, lvl, nu1, allow_kernel=allow_kernel)
+    p = _smooth(p, rhs, lvl, nu1)
     r = rhs - _lap(p, lvl)
     # Zero the residual's ghost ring so restriction sees interior only.
     coarse = levels[depth + 1]
     r_c = _restrict(r, coarse.shape)
     e_c = jnp.zeros(coarse.shape, p.dtype)
-    e_c = v_cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps,
-                  allow_kernel=allow_kernel)
+    e_c = v_cycle(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps)
     p = p + _prolong(e_c, lvl.shape)
-    return _smooth(p, rhs, lvl, nu2, allow_kernel=allow_kernel)
+    return _smooth(p, rhs, lvl, nu2)
 
 
 def inner_v_cycle(rhs_neg: jax.Array, n_cycles, params: Params) -> jax.Array:
@@ -208,10 +192,9 @@ def inner_v_cycle(rhs_neg: jax.Array, n_cycles, params: Params) -> jax.Array:
     V-cycles from delta = 0 (n_cycles is traced; typically 1 per outer)."""
     levels = build_levels(params)
     rhs = rhs_neg.astype(jnp.float32)
-    allow_kernel = not params.disable_pallas
 
     def one(_, d):
-        return v_cycle(d, rhs, levels, allow_kernel=allow_kernel)
+        return v_cycle(d, rhs, levels)
 
     # NOTE: for the standard refinement flow n_cycles == 1; the fori_loop
     # keeps the accounting exact if a caller asks for more.  Subsequent
@@ -283,8 +266,7 @@ def _nb_sum_sh(d, dx2_inv, dy2_inv, self_coef):
     )
 
 
-def _smooth_sharded_deep(p, rhs, level, n_sweeps: int, omega: float,
-                         use_kernel: bool = False):
+def _smooth_sharded_deep(p, rhs, level, n_sweeps: int, omega: float):
     """Communication-avoiding smoother (parallel/deep_halo.py applied to a
     warm start): ONE 2n-deep halo exchange of p and rhs, then n local
     red-black sweeps on the extended block with zero communication.
@@ -293,13 +275,7 @@ def _smooth_sharded_deep(p, rhs, level, n_sweeps: int, omega: float,
     update in lockstep with them, so the values a half-sweep reads are
     exactly the values an exchange would have delivered (contamination from
     the stale ring edge advances one cell per half-sweep and never reaches
-    the central (li, lj) core within n <= H/2 sweeps).
-
-    `use_kernel=True` routes the extended-block sweeps through the per-shard
-    Pallas VMEM kernel (deep_halo._ext_sweeps_call) — the same fast path the
-    single-chip MG smoother takes via sor_kernel.warm_sweeps, which the
-    shard_map smoother could not use in round 2 (it fell back to jnp rolls,
-    costing ~2x VPU time per sweep at >=256^2 local blocks)."""
+    the central (li, lj) core within n <= H/2 sweeps)."""
     from ..parallel import deep_halo as dh
 
     shape, g_dims, dx2_inv, dy2_inv = level
@@ -318,24 +294,12 @@ def _smooth_sharded_deep(p, rhs, level, n_sweeps: int, omega: float,
 
     p_ext = clean_extend(p[1:-1, 1:-1])
     rhs_ext = clean_extend(rhs[1:-1, 1:-1])
-    if use_kernel and dh.ext_block_fits_vmem(ext_shape):
-        out = dh._ext_sweeps_call(
-            jnp.asarray(n_sweeps, jnp.int32).reshape(1),
-            jnp.stack([ox, oy]).astype(jnp.int32),
-            p_ext.astype(jnp.float32), rhs_ext.astype(jnp.float32),
-            ext_shape=ext_shape, H=H, i_max=i_max_l, j_max=j_max_l,
-            omega=float(omega), dx2_inv=float(dx2_inv),
-            dy2_inv=float(dy2_inv),
-            interpret=jax.default_backend() != "tpu",
-        )
-    else:
-        out = dh._ext_sweeps_jnp(p_ext, rhs_ext, n_sweeps, red, black,
-                                 self_coef, omega, dx2_inv, dy2_inv)
+    out = dh._ext_sweeps_jnp(p_ext, rhs_ext, n_sweeps, red, black,
+                             self_coef, omega, dx2_inv, dy2_inv)
     return p.at[1:-1, 1:-1].set(out[H: H + li, H: H + lj])
 
 
-def _smooth_sharded(p, rhs, level, n_sweeps, omega: float = 1.0,
-                    use_kernel: bool = False):
+def _smooth_sharded(p, rhs, level, n_sweeps, omega: float = 1.0):
     """Red-black sweeps on a local block.  When the 2n-deep halo fits the
     neighbor block (single-hop exchange), the deep-halo smoother pays ONE
     exchange for all n sweeps; otherwise fall back to a ppermute halo
@@ -347,8 +311,7 @@ def _smooth_sharded(p, rhs, level, n_sweeps, omega: float = 1.0,
     shape, g_dims, dx2_inv, dy2_inv = level
     li, lj = shape[0] - 2, shape[1] - 2
     if isinstance(n_sweeps, int) and 2 * n_sweeps <= min(li, lj):
-        return _smooth_sharded_deep(p, rhs, level, n_sweeps, omega,
-                                    use_kernel=use_kernel)
+        return _smooth_sharded_deep(p, rhs, level, n_sweeps, omega)
 
     red, black, self_coef = _sharded_level_masks(shape, g_dims, dx2_inv, dy2_inv)
     coef = omega / (2.0 * (dx2_inv + dy2_inv))
@@ -409,7 +372,7 @@ def _coarse_solve_replicated(p, rhs, level, nu1, nu2, coarse_sweeps):
         glevels.append(_Level((ni + 2, nj + 2), d2x, d2y))
 
     e_g = v_cycle(p_g, rhs_g, glevels, nu1=nu1, nu2=nu2,
-                  coarse_sweeps=coarse_sweeps, allow_kernel=False)
+                  coarse_sweeps=coarse_sweeps)
 
     ox = lax.axis_index("x") * li
     oy = lax.axis_index("y") * lj
@@ -417,19 +380,18 @@ def _coarse_solve_replicated(p, rhs, level, nu1, nu2, coarse_sweeps):
 
 
 def v_cycle_sharded(p, rhs, levels, depth: int = 0, nu1: int = 2,
-                    nu2: int = 2, coarse_sweeps: int = 32,
-                    use_kernel: bool = False):
+                    nu2: int = 2, coarse_sweeps: int = 32):
     lvl = levels[depth]
     if depth == len(levels) - 1:
         return _coarse_solve_replicated(p, rhs, lvl, nu1, nu2, coarse_sweeps)
-    p = _smooth_sharded(p, rhs, lvl, nu1, use_kernel=use_kernel)
+    p = _smooth_sharded(p, rhs, lvl, nu1)
     r = rhs - _lap_sharded(p, lvl)
     r_c = _restrict(r, levels[depth + 1][0])
     e_c = jnp.zeros(levels[depth + 1][0], p.dtype)
-    e_c = v_cycle_sharded(e_c, r_c, levels, depth + 1, nu1, nu2, coarse_sweeps,
-                          use_kernel=use_kernel)
+    e_c = v_cycle_sharded(e_c, r_c, levels, depth + 1, nu1, nu2,
+                          coarse_sweeps)
     p = p + _prolong(e_c, lvl[0])
-    return _smooth_sharded(p, rhs, lvl, nu2, use_kernel=use_kernel)
+    return _smooth_sharded(p, rhs, lvl, nu2)
 
 
 def make_sharded_cg_inner(params: Params, li: int, lj: int):
@@ -491,25 +453,15 @@ def make_sharded_cg_inner(params: Params, li: int, lj: int):
     return inner
 
 
-def make_sharded_inner(params: Params, li: int, lj: int,
-                       use_kernel: bool | None = None):
-    """inner_fn(neg_res32_local_padded, n_cycles) for the refinement loop.
-
-    `use_kernel=None` auto-routes the deep-halo smoother sweeps through the
-    per-shard Pallas VMEM kernel on TPU (the single-chip MG smoother's fast
-    path, _smooth:101-107, extended to shard_map) unless disable_pallas is
-    set; pass an explicit bool to force either route (tests run the kernel
-    in interpret mode on CPU)."""
+def make_sharded_inner(params: Params, li: int, lj: int):
+    """inner_fn(neg_res32_local_padded, n_cycles) for the refinement loop."""
     levels = build_levels_sharded(params, li, lj)
-    if use_kernel is None:
-        use_kernel = (jax.default_backend() == "tpu"
-                      and not params.disable_pallas)
 
     def inner(rhs_neg, n_cycles):
         rhs = rhs_neg.astype(jnp.float32)
 
         def one(_, d):
-            return v_cycle_sharded(d, rhs, levels, use_kernel=use_kernel)
+            return v_cycle_sharded(d, rhs, levels)
 
         return lax.fori_loop(0, jnp.asarray(n_cycles, jnp.int32), one,
                              jnp.zeros(levels[0][0], jnp.float32))

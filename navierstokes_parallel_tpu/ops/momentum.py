@@ -1,10 +1,10 @@
 """Momentum step: tentative velocities F/G, Poisson RHS, projection, CFL dt.
 
-TPU-native redesign of the reference's momentum path (src/serial/
+Accelerator redesign of the reference's momentum path (src/serial/
 integration.c:73-96 `FG`, main.c:116-120 RHS, main.c:131-136 projection,
 main.c:89-92 adaptive dt).  Each piece is one fused elementwise expression
 over the whole grid; under jit XLA fuses the eight stencils, the F/G update,
-and the RHS into a handful of VPU passes — the analogue of the reference's
+and the RHS into a handful of fused passes — the analogue of the reference's
 hand-written calculate_F/G/RHS CUDA kernels (src/parallel/main.cu:219-382)
 without any kernel-launch or synchronization cost.
 """

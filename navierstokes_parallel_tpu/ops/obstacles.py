@@ -3,8 +3,8 @@
 The reference implements only obstacle-free rectangular domains (its
 boundaries.c touches the four outer walls exclusively); this module adds
 interior solid cells — the classic NaSt2D capability behind the
-backward-facing step and flow-past-an-obstacle benchmarks — in a TPU-first
-formulation:
+backward-facing step and flow-past-an-obstacle benchmarks — in a
+vectorized formulation:
 
   * Geometry is STATIC per `Params.obstacles` (a hashable tuple of cell
     rectangles), so every mask below folds into the jit program as a

@@ -1,6 +1,6 @@
 """Pressure-Poisson solvers: red-black SOR (and Jacobi fallback), on-device.
 
-TPU-native redesign of the reference's two SOR implementations:
+Accelerator redesign of the reference's two SOR implementations:
   * serial lexicographic Gauss-Seidel SOR (src/serial/integration.c:129-173)
   * CUDA red-black shared-memory SOR (src/parallel/main.cu:384-511, driver
     main.cu:656-726)
@@ -111,14 +111,14 @@ def jacobi_iteration(p, rhs_int, omega, dx2_inv, dy2_inv, ghost_fn=ghost_fill):
 
 
 def default_method(params: Params) -> str:
-    """Best pressure solver for the current backend: the Pallas kernels on
-    TPU (whole-grid-in-VMEM when it fits, strip-tiled otherwise), the
-    fused-jnp red-black path elsewhere (CPU, sharded local blocks).
-    Obstacle domains use the masked jnp path (ops/masked.py) — the Pallas
-    kernels carry no fluid masks."""
-    if params.obstacles:
+    """Pressure solver the CLI and bench pick when none is named: the CUDA
+    red-black kernel (`pallas_sor`, ops/sor_kernel.py) on a GPU, where it
+    beats the jnp path end to end (PERF.md), and the fused jnp red-black
+    path elsewhere.  Obstacle domains use the masked jnp path
+    (ops/masked.py) — the kernel carries no fluid masks."""
+    if params.obstacles or params.disable_pallas:
         return "rb_sor"
-    if jax.default_backend() == "tpu":
+    if jax.default_backend() == "gpu":
         return "pallas_sor"
     return "rb_sor"
 
@@ -140,7 +140,7 @@ def solve_pressure(
     reference's per-iteration cudaMemcpy + host test, main.cu:710-713).
 
     Precision policy: in float64 this is the direct reference algorithm.  In
-    float32 (the TPU-native dtype) the discrete Laplacian amplifies p's
+    float32 (the default state dtype) the discrete Laplacian amplifies p's
     storage rounding by ~8/dx^2, putting an ulp(p)*8/dx^2 noise floor on the
     achievable residual that exceeds the reference's stopping threshold for
     grids >= ~64^2.  We therefore use *mixed-precision iterative refinement*
@@ -222,7 +222,7 @@ def solve_pressure(
             method="rb_sor", inner="mg",
         )
     if method == "fft":
-        # Direct DCT-II spectral solve on the MXU (ops/fft.py): one
+        # Direct DCT-II spectral solve (ops/fft.py): one
         # transform-divide-transform per f64 defect check; `iterations`
         # counts direct solves (typically 2-3 to meet the contract).
         # The transforms here are global; the sharded backend plugs the
@@ -246,15 +246,17 @@ def solve_pressure(
             method="rb_sor", inner="fft",
         )
     if method == "pallas_sor":
-        # Pallas VMEM kernel as the refinement inner stage.  Single-chip
-        # only: the kernel performs K sweeps without halo exchange, so the
-        # sharded path keeps the jnp inner (its ghost_fn must run between
-        # half-sweeps).
+        # The CUDA kernel (ops/sor_kernel.py) as the refinement inner stage.
+        # Single-chip only: one launch runs k sweeps with no halo exchange,
+        # so the sharded backends keep their jnp inners.
         if hooks:
             raise ValueError("pallas_sor is single-chip only (got shard hooks)")
         if params.disable_pallas:
             raise ValueError("pallas_sor unavailable: params.disable_pallas "
                              "is set (GSPMD backend) — use rb_sor/mg/cg/fft")
+        from .sor_kernel import require_gpu
+
+        require_gpu()
         if not jax.config.jax_enable_x64 and \
                 params.outer_precision != "compensated":
             raise ValueError("pallas_sor requires x64 for the f64 master "
@@ -366,11 +368,12 @@ def _make_inner_sweeps(p_shape, params, *, method, inner, inner_fn, omega32,
             rhs_full = jnp.zeros(p_shape, f32).at[1:-1, 1:-1].set(neg_res32)
             return inner_fn(rhs_full, n_sweeps)
     elif inner == "pallas":
-        from .pallas import sor_kernel
+        from . import sor_kernel
 
         def inner_sweeps(neg_res32, n_sweeps):
             rhs_full = jnp.zeros(p_shape, f32).at[1:-1, 1:-1].set(neg_res32)
-            return sor_kernel.inner_sweeps(rhs_full, n_sweeps, params)
+            return sor_kernel.inner_sweeps(rhs_full, n_sweeps, params,
+                                           params.sor_refine_every)
     elif inner == "mg":
         from . import mg
 
@@ -462,7 +465,7 @@ def _solve_pressure_refined(p, rhs, params, *, method, ghost_fn=ghost_fill,
 
     `params.outer_precision == "compensated"` swaps the f64 outer for the
     two-float f32 outer (`_solve_pressure_refined_compensated`) — same
-    contract, no f64 ops (TPU-emulated), no x64 requirement.
+    contract, no f64 ops, no x64 requirement.
     """
     if params.outer_precision == "compensated":
         if residual_fn is not None:
@@ -557,12 +560,12 @@ def _solve_pressure_refined_compensated(p, rhs, params, *, method,
                                         valid_mask=None, mean_fn=jnp.mean):
     """Two-float (compensated f32) refinement outer — no f64 anywhere.
 
-    TPU f64 is software-emulated, so at large grids the f64 outer pass can
-    rival the f32 inner stage it wraps (scripts/step_breakdown.py measures
-    the split).  This outer keeps the identical structure and convergence
-    contract but carries the master pressure as an error-free f32 pair
-    (hi, lo) and evaluates the defect with compensated arithmetic
-    (ops/compensated.py) — ~48 mantissa bits at full f32 VPU rate, and no
+    On hardware whose f64 rate is far below its f32 rate the f64 outer pass
+    can rival the f32 inner stage it wraps (scripts/step_breakdown.py
+    measures the split).  This outer keeps the identical structure and
+    convergence contract but carries the master pressure as an error-free
+    f32 pair (hi, lo) and evaluates the defect with compensated arithmetic
+    (ops/compensated.py) — ~48 mantissa bits in f32 arithmetic, and no
     global x64 requirement.
 
     The ghost/halo refresh is applied to hi and lo independently: ghost_fn

@@ -1,11 +1,11 @@
 """Finite-difference stencils, vectorized as shifted-slice arithmetic.
 
-TPU-native re-design of the reference's eight pointwise stencil functions
+Vectorized re-design of the reference's eight pointwise stencil functions
 (reference: src/serial/integration.c:7-71 — four donor-cell convective
 stencils with gamma-weighted upwinding, four central second derivatives).
 Instead of scalar functions evaluated per (i, j) in a loop, each stencil here
-is one fused jnp expression over the whole interior: XLA maps these onto the
-VPU as a handful of elementwise passes, and fuses them into the surrounding
+is one fused jnp expression over the whole interior: XLA compiles these
+into a handful of elementwise passes, and fuses them into the surrounding
 momentum computation.
 
 Every function takes full padded (i_max+2, j_max+2) arrays and returns an

@@ -4,7 +4,7 @@ boundary conditions, and the Dirichlet-anchored masked pressure solve.
 This restores the free-boundary capability of the serial lineage (Griebel
 et al. 1998 ch. 8: flag fields from marker particles, surface cells, the
 p=0 atmospheric condition) that the reference repo dropped entirely — and
-it is the "M" in MAC that `particles.py` makes possible.  The TPU-first
+it is the "M" in MAC that `particles.py` makes possible.  The vectorized
 formulation replaces the serial code's per-cell 16-way neighbor case
 analysis with three vectorized passes over static-shaped masks:
 

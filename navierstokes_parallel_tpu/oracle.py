@@ -5,8 +5,8 @@ The reference uses its serial C build as the oracle for the CUDA path
 pattern: this module is a float64 NumPy re-implementation of the *serial*
 semantics (src/serial/ — lexicographic in-place Gauss-Seidel SOR, exact
 ghost-fill ordering, the signed-max quirk of max_mat), used by the test suite
-to validate the TPU paths (pure-jnp, Pallas, sharded) within the reference's
-1e-4 tolerance contract.
+to validate the accelerated paths (pure-jnp, CUDA kernel, sharded) within
+the reference's 1e-4 tolerance contract.
 
 Deliberately unoptimized; only run on small grids in tests.  A native C
 version of this oracle (csrc/) provides the fast serial baseline for

@@ -1,45 +1,36 @@
 """Communication-avoiding sharded SOR inner stage: deep halos, K local sweeps.
 
-The round-2 sharded path paid 2 ppermute halo rounds per red-black sweep
-(ops/sor.py `rb_sor_iteration` with the ppermute ghost_fn) — on real ICI that
-serializes collective latency against VPU work the single-chip kernels hide
-entirely.  This module applies the strip-tiled kernel's own trick *across
-shards* (ops/pallas/sor_kernel.py `_make_tiled_kernel`, where it is applied
-across VMEM strips): exchange a 2K-deep halo ONCE, then run K complete local
-red-black sweeps with no communication at all.
+The exchange-per-half-sweep sharded path pays 2 ppermute halo rounds per
+red-black sweep (ops/sor.py `rb_sor_iteration` with the ppermute ghost_fn),
+serializing collective latency against the sweeps themselves.  This module
+applies the CUDA SOR kernel's own trick *across shards* (csrc/rb_sor.cu,
+where it is applied across thread-block tiles): exchange a 2K-deep halo
+ONCE, then run K complete local red-black sweeps with no communication.
 
-Why this is exact (the same argument that makes the strip kernel exact):
+Why this is exact (the same argument that makes the tiled kernel exact):
 the sweeps run on an extended (li+2H, lj+2H) block whose H-deep ring holds
 the neighbors' pre-chunk values.  Contamination from the stale ring edge
 advances one cell per half-sweep, so after K sweeps (2K half-sweeps) with
 H = 2K, the central (li, lj) cells carry exactly the values a global sweep
 would produce — per-cell arithmetic is identical, so the result is
 *bit-identical* to the single-chip folded-Neumann formulation
-(`sor_kernel._roll_sweeps_xla` / the whole-grid VMEM kernel), which the
-tests assert.
+(`sor_kernel._roll_sweeps_xla`), which the tests assert.
 
 Boundary semantics ride the same global-index machinery as the rest of the
 sharded path: cells outside the TRUE global interior (physical ghosts, and
 pad cells under pad-to-divisible sharding) are masked out of every update
 and zeroed, and the homogeneous-Neumann ghost contribution is folded into a
-per-cell self-coefficient keyed on the *global* index (sor_kernel.py:88-97)
-— so no ghost filling of any kind happens between half-sweeps.
+per-cell self-coefficient keyed on the *global* index (as in
+`sor_kernel._roll_sweeps_xla`) — so no ghost filling of any kind happens
+between half-sweeps.
 
 Communication per K sweeps: ONE deep exchange (4 ppermutes) instead of 2K
 exchanges (8K ppermutes).  The reference CUDA kernel re-synchronizes its
 tiles through global memory every half-sweep (main.cu:684-698); this is the
 multi-chip design it could not express.
-
-`use_pallas=True` additionally routes each shard's K-sweep extended block
-through the whole-block VMEM Pallas kernel (`_ext_sweeps_call` below) —
-lifting round 2's "pallas_sor is single-chip only" restriction: the deep
-halo is exactly what lets a kernel that cannot communicate run K sweeps
-per shard without being wrong at shard seams.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -48,34 +39,6 @@ from jax import lax
 
 from ..config import Params
 from .halo import _shift_down, _shift_up
-
-
-# Measured on v5e (artifacts/repro_2048_sharded.json, step_half): the ext
-# kernel's in-kernel mask rebuild (iota gi/gj, red/black, self_coef, roll
-# temps) peaks at ~14.5 live block-sized buffers during Mosaic's scoped
-# allocation — a 2080x1056 block demanded 127.73 MB against a 109.69 MB
-# limit and failed to COMPILE (deterministic, not the worker-crash family).
-# The whole-grid kernel's 3-array vmem_bytes_required model does not apply
-# here (its masks are baked constants).  Gate and compile limit share this
-# multiplier; budget 100 MB leaves headroom under the 128 MB physical VMEM.
-EXT_KERNEL_LIVE_ARRAYS = 15
-EXT_KERNEL_VMEM_BUDGET = 100 * 1024 * 1024
-
-
-def _ext_per_array_bytes(ext_shape, itemsize: int = 4) -> int:
-    ni, nj = ext_shape
-    return -(-ni // 8) * 8 * -(-nj // 128) * 128 * itemsize
-
-
-def ext_block_fits_vmem(ext_shape, budget_bytes: int = EXT_KERNEL_VMEM_BUDGET,
-                        itemsize: int = 4) -> bool:
-    """Whether a shard's extended block can run the whole-block VMEM ext
-    kernel — gated on the ext kernel's own measured liveness (see
-    EXT_KERNEL_LIVE_ARRAYS above), NOT sor_kernel.vmem_bytes_required's
-    3-array whole-grid model, which under-counted by ~5x and let
-    2048x1024 shards through to a guaranteed compile failure."""
-    per = _ext_per_array_bytes(tuple(ext_shape), itemsize)
-    return EXT_KERNEL_LIVE_ARRAYS * per <= budget_bytes
 
 
 def comm_depth(params: Params, li: int, lj: int) -> int:
@@ -105,7 +68,7 @@ def _ext_masks(ext_shape, H, ox, oy, i_max, j_max, dx2_inv, dy2_inv):
     (a, b) is global interior cell (gi, gj) = (ox + a - H + 1, oy + b - H + 1)
     — the same 1-based indexing as the single-chip kernels, so the parity,
     interior mask, and folded-Neumann self-coefficient all match main.cu:490
-    / sor_kernel.py:88-97 exactly."""
+    / `sor_kernel._roll_sweeps_xla` exactly."""
     gi = lax.broadcasted_iota(jnp.int32, ext_shape, 0) + (ox - H + 1)
     gj = lax.broadcasted_iota(jnp.int32, ext_shape, 1) + (oy - H + 1)
     interior = (gi >= 1) & (gi <= i_max) & (gj >= 1) & (gj <= j_max)
@@ -213,87 +176,7 @@ def _ext_sweeps_jnp(delta_ext, rhs_ext, ns, red, black, self_coef, omega,
     return lax.fori_loop(0, ns, sweep, delta_ext)
 
 
-# ---------------------------------------------------------------------------
-# Per-shard Pallas kernel over the extended block.  The single-chip
-# whole-grid kernel (sor_kernel._make_kernel) bakes its masks from the
-# padded shape; here the masks depend on the shard's global origin, which is
-# a *traced* value inside shard_map — so the kernel takes (ns, ox, oy) as
-# SMEM scalars and rebuilds the masks in-kernel from them (int32 iota + add,
-# free on the VPU).
-# ---------------------------------------------------------------------------
-
-
-def _make_ext_kernel(ext_shape, H, i_max, j_max, omega, dx2_inv, dy2_inv,
-                     use_pltpu_roll):
-    from ..ops.pallas.sor_kernel import _roll
-
-    roll = _roll if use_pltpu_roll else jnp.roll
-    coef = omega / (2.0 * (dx2_inv + dy2_inv))
-    f32 = jnp.float32
-
-    def kernel(ns_ref, org_ref, d_ref, rhs_ref, out_ref):
-        ox = org_ref[0]
-        oy = org_ref[1]
-        gi = lax.broadcasted_iota(jnp.int32, ext_shape, 0) + (
-            ox - jnp.int32(H - 1))
-        gj = lax.broadcasted_iota(jnp.int32, ext_shape, 1) + (
-            oy - jnp.int32(H - 1))
-        interior = (gi >= 1) & (gi <= i_max) & (gj >= 1) & (gj <= j_max)
-        par = (gi + gj) & 1
-        red = interior & (par == 0)
-        black = interior & (par == 1)
-        self_coef = (
-            ((gi == 1).astype(f32) + (gi == i_max).astype(f32)) * dx2_inv
-            + ((gj == 1).astype(f32) + (gj == j_max).astype(f32)) * dy2_inv
-        )
-        rhs = rhs_ref[:]
-
-        def half(d, mask):
-            nb = (
-                (roll(d, 1, 0) + roll(d, -1, 0)) * dx2_inv
-                + (roll(d, 1, 1) + roll(d, -1, 1)) * dy2_inv
-                + d * self_coef
-            )
-            return jnp.where(mask, (1.0 - omega) * d + coef * (nb - rhs), d)
-
-        def sweep(_, d):
-            return half(half(d, red), black)
-
-        out_ref[:] = lax.fori_loop(0, ns_ref[0], sweep, d_ref[:])
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("ext_shape", "H", "i_max",
-                                             "j_max", "omega", "dx2_inv",
-                                             "dy2_inv", "interpret"))
-def _ext_sweeps_call(ns, origin, delta_ext, rhs_ext, *, ext_shape, H, i_max,
-                     j_max, omega, dx2_inv, dy2_inv, interpret):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    kernel = _make_ext_kernel(ext_shape, H, i_max, j_max, omega, dx2_inv,
-                              dy2_inv, use_pltpu_roll=not interpret)
-    per_array = _ext_per_array_bytes(ext_shape)
-    limit = max(16 << 20, EXT_KERNEL_LIVE_ARRAYS * per_array)
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct(ext_shape, jnp.float32),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            compiler_params=pltpu.CompilerParams(vmem_limit_bytes=limit),
-            interpret=interpret,
-        )(ns, origin, delta_ext, rhs_ext)
-
-
-def make_deep_inner(params: Params, li: int, lj: int, *,
-                    use_pallas: bool = False):
+def make_deep_inner(params: Params, li: int, lj: int):
     """Build `inner_fn(rhs_full, n_sweeps) -> delta_full` for
     `sor._solve_pressure_refined` running inside shard_map: the
     communication-avoiding sharded inner stage.
@@ -310,15 +193,6 @@ def make_deep_inner(params: Params, li: int, lj: int, *,
     omega = jnp.asarray(params.omega, f32)
     i_max, j_max = params.i_max, params.j_max
     ext_shape = (li + 2 * H, lj + 2 * H)
-    interpret = jax.default_backend() != "tpu"
-    if use_pallas and (not ext_block_fits_vmem(ext_shape)
-                       or params.obstacles):
-        # A 2048^2+ local block cannot hold delta+rhs+temps in VMEM; the
-        # jnp extended-block sweeps (same math, XLA rolls at full HBM
-        # bandwidth) are the correct large-block route.  Obstacle domains
-        # run the masked jnp sweeps (the VMEM kernel carries no fluid
-        # weights).
-        use_pallas = False
 
     def inner_fn(rhs_full, n_sweeps):
         ox = lax.axis_index("x") * li
@@ -353,18 +227,6 @@ def make_deep_inner(params: Params, li: int, lj: int, *,
             def ext_sweeps(delta_ext, ns):
                 return _ext_sweeps_masked(delta_ext, rhs_ext, ns, weights,
                                           red, black, omega)
-        elif use_pallas:
-            origin = jnp.stack([ox, oy]).astype(jnp.int32)
-
-            def ext_sweeps(delta_ext, ns):
-                return _ext_sweeps_call(
-                    ns.reshape(1), origin, delta_ext, rhs_ext,
-                    ext_shape=ext_shape, H=H, i_max=i_max, j_max=j_max,
-                    omega=float(params.omega),
-                    dx2_inv=float(1.0 / (params.dx * params.dx)),
-                    dy2_inv=float(1.0 / (params.dy * params.dy)),
-                    interpret=interpret,
-                )
         else:
             def ext_sweeps(delta_ext, ns):
                 return _ext_sweeps_jnp(delta_ext, rhs_ext, ns, red, black,

@@ -2,11 +2,11 @@
 
 Each shard holds a (li+2, lj+2) padded block: li x lj interior plus a
 one-cell halo ring.  Interior shard boundaries are refreshed with
-`lax.ppermute` strip exchanges riding the ICI; physical-domain halos are
+`lax.ppermute` strip exchanges between devices; physical-domain halos are
 closed by per-field boundary-condition closures (see sharded.py).  This is
 the multi-chip analogue of the reference CUDA kernel's shared-memory halo
 loads (src/parallel/main.cu:411-484) — except the "tile" is a whole chip's
-shard and the "shared memory" is its HBM/VMEM.
+shard and the "shared memory" is its device memory.
 
 Exchange order is y (axis 1) first, then x (axis 0) sending full columns
 *including* the freshly filled y-halo entries, so corner halo cells pick up

@@ -4,7 +4,7 @@ The serial lineage this framework re-implements (Griebel et al. 1998,
 sect. 3.4 "visualization": particle tracing, eq. 4.1-4.3) carries marker
 particles through the evolving velocity field; the reference repo dropped
 the capability entirely (its post-processing is field plots only,
-src/plot_field.py).  This module restores it in a TPU-first formulation:
+src/plot_field.py).  This module restores it in a vectorized formulation:
 
   * A particle set is a fixed-capacity pytree of coordinate vectors — no
     Python lists of structs, no dynamic allocation.  Everything jits;

@@ -2,7 +2,7 @@
 
 The reference's failure handling is an abort-on-error CUDA macro
 (CHECK_CUDA_ERROR, main.cu:36-43) and silently-ignored SOR non-convergence
-(main.c:123).  The TPU framework's equivalents:
+(main.c:123).  The framework's equivalents:
 
   * XLA raises on compile/runtime errors by itself;
   * SOR non-convergence is *tracked* (SolveStats.sor_failures) and surfaced

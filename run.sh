@@ -1,7 +1,7 @@
 #!/bin/bash
 # Benchmark harness entry point — the framework's analogue of the
 # reference's SLURM run.sh.  Builds the native serial backend, runs the
-# serial-vs-TPU comparison on the configs/ workloads, and writes the
+# serial-vs-GPU comparison on the configs/ workloads, and writes the
 # reference-schema CSVs into results/.
 #
 # Usage:
@@ -14,5 +14,5 @@ cd "$(dirname "$0")"
 echo "==== Building native serial backend ===="
 make -C csrc
 
-echo "==== Serial vs TPU Comparison ===="
+echo "==== Serial vs GPU Comparison ===="
 python scripts/run_benchmarks.py "$@"

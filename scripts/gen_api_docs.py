@@ -96,10 +96,8 @@ def iter_modules():
     pkg = importlib.import_module(PACKAGE)
     yield PACKAGE
     for info in pkgutil.walk_packages(pkg.__path__, prefix=PACKAGE + "."):
-        if ".pallas." in info.name or info.name.endswith("__main__"):
-            # pallas kernels documented via their op-level wrappers
-            if "sor_kernel" not in info.name and "momentum_kernel" not in info.name:
-                continue
+        if info.name.endswith("__main__"):
+            continue
         yield info.name
 
 

@@ -86,9 +86,8 @@ def main():
               f"dp={co['dp_mean']:.3f}{surf} "
               f"fails={trace.stats.sor_failures} wall={wall:.0f}s",
               flush=True)
-        # Rewrite the CSV after EVERY rung: a TPU worker crash on a later
-        # (bigger) rung must not lose the finished ladder below it (the
-        # first n=60 attempt crashed the worker and dropped 4 rungs).
+        # Rewrite the CSV after EVERY rung: a failure on a later (bigger)
+        # rung must not lose the finished ladder below it.
         _write_csv(csv, rows, args.staircase)
     print(f"wrote {csv}")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Backend parity runner — the framework's colab-runner.ipynb equivalent.
 
-Runs the native C serial backend and the TPU backend(s) on the same
+Runs the native C serial backend and the GPU backend(s) on the same
 workloads, applies the reference's tolerance comparator (relative for
 |x| > 1 else absolute, tol=1e-4) to the center observables and full fields,
 and reports CORRECT/INCORRECT plus the speedup — computed only on CORRECT
@@ -46,7 +46,6 @@ def main(argv=None):
     from navierstokes_parallel_tpu.grid import allocate_state
     from navierstokes_parallel_tpu.parallel.sharded import solve_sharded
     from navierstokes_parallel_tpu.solver import _solve_on_device
-    from navierstokes_parallel_tpu.utils.timing import device_fence
 
     failures = 0
     for cfg in args.configs.split(","):
@@ -69,11 +68,9 @@ def main(argv=None):
                         solve_gspmd as solve_fn
                 else:
                     solve_fn = solve_sharded
-                state, stats = solve_fn(params)  # warmup/compile
-                device_fence(state)
+                jax.block_until_ready(solve_fn(params))  # warmup/compile
                 t0 = time.perf_counter()
-                state, stats = solve_fn(params)
-                device_fence(state)
+                state, stats = jax.block_until_ready(solve_fn(params))
                 t_b = time.perf_counter() - t0
             else:
                 method = {"jnp": "rb_sor", "pallas": "pallas_sor"}[backend]
@@ -84,8 +81,7 @@ def main(argv=None):
                     .compile()
                 )
                 t0 = time.perf_counter()
-                state, stats = compiled(state0)
-                device_fence(state)
+                state, stats = jax.block_until_ready(compiled(state0))
                 t_b = time.perf_counter() - t0
 
             ok_u, err_u = _tol_ok(np.asarray(state.u)[1:-1, 1:-1],

@@ -11,8 +11,9 @@ Reproduces the reference's CSV artifacts with identical schemas:
 
 "serial" = the native C backend executable (csrc/, timed via its stderr
 cumulative-SOR-seconds protocol, like the reference scrapes run.sh:57-66).
-"parallel" = the TPU solve (auto backend: Pallas VMEM kernel), AOT-compiled
-so the timing excludes jit compilation — the C side has no JIT either.
+"parallel" = the GPU solve (the CLI's default method, ops.sor.default_method),
+AOT-compiled so the timing excludes jit compilation — the C side has no JIT
+either.
 
 The reference's serial baselines run for hours at 1024^2/2048^2
 (BASELINE.md); by default only the workloads in --tests run, and
@@ -45,7 +46,7 @@ def time_serial(config_path: str, runs: int):
     return statistics.mean(times), statistics.stdev(times) if runs > 1 else 0.0
 
 
-def time_tpu(config_path: str, runs: int, refine_every=2048):
+def time_gpu(config_path: str, runs: int, refine_every=2048):
     """refine_every defaults to the benchmark-tuned K=2048 (same as
     bench.py; the block-size analogue — the reference's harness also runs
     its best block size for the headline, speedup.csv bs=16)."""
@@ -53,6 +54,7 @@ def time_tpu(config_path: str, runs: int, refine_every=2048):
 
     jax.config.update("jax_enable_x64", True)
     from navierstokes_parallel_tpu.config import Params
+    from navierstokes_parallel_tpu.utils.device import require_device
     from navierstokes_parallel_tpu.grid import allocate_state
     from navierstokes_parallel_tpu.ops.sor import default_method
     from navierstokes_parallel_tpu.solver import _solve_on_device
@@ -60,31 +62,18 @@ def time_tpu(config_path: str, runs: int, refine_every=2048):
     overrides = {"dtype": "float32"}
     if refine_every is not None:
         overrides["sor_refine_every"] = refine_every
+    require_device()
     params = Params.from_file(config_path, **overrides)
     state = allocate_state(params)
     method = default_method(params)
-    if params.i_max >= 2048:
-        # Segmented dispatches, like bench.py: a single monolithic
-        # multi-minute dispatch has crashed the remote TPU worker.
-        from navierstokes_parallel_tpu.solver import solve_segmented
-
-        def run():
-            return solve_segmented(params, state, pressure_method=method,
-                                   steps_per_dispatch=8)
-    else:
-        compiled = (
-            jax.jit(_solve_on_device, static_argnums=(0, 2))
-            .lower(params, state, method)
-            .compile()
-        )
-
-        def run():
-            return compiled(state)
+    compiled = (
+        jax.jit(_solve_on_device, static_argnums=(0, 2))
+        .lower(params, state, method)
+        .compile()
+    )
 
     def once():
-        out, _ = run()
-        # Scalar fetch = the only reliable device fence on this platform.
-        float(out.u[params.i_max // 2, params.j_max // 2])
+        jax.block_until_ready(compiled(state))
 
     once()  # warmup
     times = []
@@ -119,7 +108,7 @@ def main(argv=None):
             for k in sweep:
                 for t in tests:
                     cfg = os.path.join(cfg_dir, f"{t}.in")
-                    mean, std = time_tpu(cfg, args.runs, refine_every=k)
+                    mean, std = time_gpu(cfg, args.runs, refine_every=k)
                     print(f"test {t} K={k}: {mean:.4f}s ± {std:.4f}")
                     fh.write(f"{t},{k},{mean:.4f},{std:.4f}\n")
         print(f"wrote {path}")
@@ -137,12 +126,12 @@ def main(argv=None):
             else:
                 print(f"test {t}: timing native serial ({args.runs} runs)...")
                 s_mean, s_std = time_serial(cfg, args.runs)
-            print(f"test {t}: timing TPU solve ({args.runs} runs)...")
-            p_mean, p_std = time_tpu(cfg, args.runs)
+            print(f"test {t}: timing GPU solve ({args.runs} runs)...")
+            p_mean, p_std = time_gpu(cfg, args.runs)
             speedup = s_mean / p_mean if p_mean else 0.0
             print(
                 f"Test {t}: Serial={s_mean:.4f}s±{s_std:.4f}, "
-                f"TPU={p_mean:.4f}s±{p_std:.4f}, Speedup={speedup:.4f}x"
+                f"GPU={p_mean:.4f}s±{p_std:.4f}, Speedup={speedup:.4f}x"
             )
             fs.write(f"{t},{s_mean:.4f},{s_std:.4f},{p_mean:.4f},{p_std:.4f},"
                      f"{speedup:.4f}\n")

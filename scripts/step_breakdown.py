@@ -2,11 +2,10 @@
 
 The fft/mg methods run K=1 refinement: per direct solve the outer does a
 full-grid f64 defect + L2 + master update, and per step the driver does
-momentum (FG + RHS), projection, BCs, and the adaptive-dt reduction.  On
-TPU f64 is software-emulated, so at 2048^2+ the outer passes can rival the
-transforms themselves — this script measures each piece on the real chip
-with chained (fori_loop) latency-differenced timings, the same discipline
-as scripts/parity_breakdown.py:
+momentum (FG + RHS), projection, BCs, and the adaptive-dt reduction.  At
+2048^2+ the outer passes can rival the transforms themselves — this script
+measures each piece on the GPU with chained (fori_loop) timings differenced
+between two chain lengths:
 
   1. DCT solve alone, both transform routes (ms/solve);
   2. one f64 outer pass (residual + L2 + update) (ms/pass);
@@ -26,11 +25,6 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-from _platform import apply_platform_override
-
-apply_platform_override()
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -51,10 +45,7 @@ def chained_ms(fn, arg_specs, args, n1=4, n2=24, repeats=3):
     n_spec = jax.ShapeDtypeStruct((), jnp.int32)
     compiled = jax.jit(run).lower(n_spec, *arg_specs).compile()
 
-    from navierstokes_parallel_tpu.utils.timing import device_fence
-
-    def fence(out):
-        device_fence(out)
+    fence = jax.block_until_ready
 
     fence(compiled(np.int32(n1), *args))
     fence(compiled(np.int32(n2), *args))
@@ -98,8 +89,8 @@ def main():
     t_mat = chained_ms(lambda r: fftmod._solve_matmul(r, lam, ni, nj),
                        (spec32,), (rhs32,), repeats=args.repeats)
     print(f"[1] DCT solve matmul: {t_mat:8.3f} ms/solve")
-    # MXU precision ladder (Params.fft_precision): lower precision cuts the
-    # 6-pass bf16 emulation down to 3/1 passes; the refinement outer absorbs
+    # Matmul precision ladder (Params.fft_precision): below HIGHEST the card
+    # may round the operands to TF32; the refinement outer absorbs
     # the per-solve error as extra solves, so ms/solve here must be weighed
     # against the solve-count change bench.py --fft-precision reports.
     for prec in ("high", "default"):

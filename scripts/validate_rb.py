@@ -65,7 +65,7 @@ def run_onset(args, cv):
         sig.append(r)
         rows.append([ra, args.n, args.method, r["sigma"], r["E0"],
                      r["E1"], r["t0"], r["t1"], wall])
-        # Persist per-Ra results as they land: a long TPU run must not
+        # Persist per-Ra results as they land: a long run must not
         # lose its measurements to a crash in the extrapolation below.
         _write_onset_csv(out, rows)
     r1, r2 = sig[0], sig[-1]

@@ -1,18 +1,29 @@
 """Test configuration: force CPU with 8 virtual devices so the multi-chip
-sharded path runs under CI without a TPU pod (SURVEY.md §4), and enable x64
-so parity tests against the float64 serial oracle are exact."""
+sharded path runs under CI without a GPU cluster (SURVEY.md §4), and enable
+x64 so parity tests against the float64 serial oracle are exact.
+
+Tests marked `gpu` need the card (the CUDA SOR kernel has no CPU mode) and
+skip on the CPU.  On a machine with a GPU run them with
+
+    NSP_TEST_GPU=1 python -m pytest -m gpu tests/
+
+which leaves JAX on its default platform."""
 
 import os
 
+_ON_GPU = os.environ.get("NSP_TEST_GPU") == "1"
 # Must happen before jax import.
-os.environ["JAX_PLATFORMS"] = "cpu"
-_flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in _flags:
-    os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
+if not _ON_GPU:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    _flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in _flags:
+        os.environ["XLA_FLAGS"] = (
+            _flags + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if not _ON_GPU:
+    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import gc  # noqa: E402
@@ -21,6 +32,21 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 from navierstokes_parallel_tpu.config import Params  # noqa: E402
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (skips elsewhere; run with "
+                   "NSP_TEST_GPU=1 python -m pytest -m gpu tests/)")
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX runs on a GPU (decided here, at test time, never at
+    import or collection)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU: run NSP_TEST_GPU=1 python -m "
+                    "pytest -m gpu tests/ on the card")
 
 
 _modules_since_clear = 0

@@ -1,9 +1,9 @@
 """Compensated (two-float f32) refinement outer — ops/compensated.py and the
 `Params.outer_precision="compensated"` path of ops/sor.py.
 
-TPU software-emulates f64, so the refinement outer's f64 defect/L2/master
-update can rival the f32 inner stage at large grids; the compensated outer
-replaces it with error-free f32-pair arithmetic.  These tests pin:
+Where f64 runs far below the f32 rate the refinement outer's f64
+defect/L2/master update can rival the f32 inner stage at large grids; the
+compensated outer replaces it with error-free f32-pair arithmetic.  These tests pin:
 
   * the EFT primitives are exact (two_sum/two_prod identities vs f64);
   * the compensated defect matches a true f64 defect to ulp(residual) even
@@ -11,7 +11,7 @@ replaces it with error-free f32-pair arithmetic.  These tests pin:
   * end-to-end solves CONVERGE IDENTICALLY (same outer-iteration counts) and
     meet the reference 1e-4 comparator contract against the f64 outer, for
     every inner (rb_sor / mg / fft);
-  * no global x64 is required (the whole point on TPU);
+  * no global x64 is required;
   * the sharded hooks compose (ghost exchange commutes with hi+lo).
 """
 

@@ -1,11 +1,10 @@
 """Communication-avoiding deep-halo sharded inner stage (parallel/deep_halo).
 
-The contract (VERDICT round 2, item 1): ppermute a 2K-deep halo once, then
-run K local red-black sweeps per shard with no exchange — numerically identical to
-the single-chip folded-Neumann inner (ulp-level; identical per-cell math) (`sor_kernel._roll_sweeps_xla`), with
-the exchange count independent of the sweep count; and the per-shard Pallas
-VMEM kernel runs inside shard_map on the extended blocks (pallas_sor is no
-longer single-chip-only).
+The contract: ppermute a 2K-deep halo once, then run K local red-black
+sweeps per shard with no exchange — numerically identical to the
+single-chip folded-Neumann inner (ulp-level; identical per-cell math)
+(`sor_kernel._roll_sweeps_xla`), with the exchange count independent of the
+sweep count.
 """
 
 import numpy as np
@@ -16,7 +15,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from navierstokes_parallel_tpu.config import Params
-from navierstokes_parallel_tpu.ops.pallas import sor_kernel
+from navierstokes_parallel_tpu.ops import sor_kernel
 from navierstokes_parallel_tpu.parallel import deep_halo, sharded
 from navierstokes_parallel_tpu.parallel.topology import (
     grid_sharding,
@@ -36,8 +35,7 @@ def _params(n, **kw):
                   epsilon=1e-4, dtype="float32", **kw)
 
 
-def _run_deep_inner(params, rhs_full, n_sweeps, n_devices=8,
-                    use_pallas=False):
+def _run_deep_inner(params, rhs_full, n_sweeps, n_devices=8):
     """Scatter rhs over the mesh, run the deep-halo inner in shard_map,
     gather the delta back in reference layout."""
     mesh = make_grid_mesh(n_devices, params.i_max, params.j_max)
@@ -45,8 +43,7 @@ def _run_deep_inner(params, rhs_full, n_sweeps, n_devices=8,
     li, lj = local_block_dims((px, py), params.i_max, params.j_max)
 
     def local_fn(rhs_block):
-        inner = deep_halo.make_deep_inner(params, li, lj,
-                                          use_pallas=use_pallas)
+        inner = deep_halo.make_deep_inner(params, li, lj)
         return inner(rhs_block, jnp.asarray(n_sweeps, jnp.int32))
 
     mapped = jax.jit(shard_map(
@@ -94,60 +91,6 @@ def test_deep_inner_bit_identical_padded_grid():
     got = _run_deep_inner(params, rhs, 6)
     np.testing.assert_allclose(got[1:-1, 1:-1], want[1:-1, 1:-1],
                                rtol=1e-4, atol=1e-8)
-
-
-def test_deep_inner_pallas_matches_jnp():
-    """The per-shard Pallas kernel route (interpret mode off-TPU) must agree
-    with the jnp extended-block sweeps."""
-    params = _params(32)
-    rng = np.random.default_rng(11)
-    rhs = np.zeros(params.shape, np.float32)
-    rhs[1:-1, 1:-1] = rng.standard_normal((32, 32)).astype(np.float32)
-
-    got_jnp = _run_deep_inner(params, rhs, 8, use_pallas=False)
-    got_pl = _run_deep_inner(params, rhs, 8, use_pallas=True)
-    np.testing.assert_allclose(got_pl[1:-1, 1:-1], got_jnp[1:-1, 1:-1],
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_sharded_mg_smoother_kernel_matches_jnp():
-    """The sharded MG smoother's Pallas route (use_kernel=True, interpret
-    mode off-TPU) must agree with its jnp extended-block sweeps — the same
-    contract as the deep-halo SOR inner above, applied to the V-cycle's
-    warm-start smoothing (ops/mg.py _smooth_sharded_deep)."""
-    from navierstokes_parallel_tpu.ops import mg
-
-    params = _params(64)
-    mesh = make_grid_mesh(8, 64, 64)
-    px, py = mesh.devices.shape
-    li, lj = local_block_dims((px, py), 64, 64)
-    assert min(li, lj) >= 8, "need real smoothing levels for this test"
-
-    rng = np.random.default_rng(5)
-    rhs = np.zeros(params.shape, np.float32)
-    rhs[1:-1, 1:-1] = rng.standard_normal((64, 64)).astype(np.float32)
-
-    def run(use_kernel):
-        def local_fn(rhs_block):
-            inner = mg.make_sharded_inner(params, li, lj,
-                                          use_kernel=use_kernel)
-            return inner(rhs_block, jnp.asarray(1, jnp.int32))
-
-        mapped = jax.jit(shard_map(
-            local_fn, mesh=mesh, in_specs=(P("x", "y"),),
-            out_specs=P("x", "y"), check_vma=False,
-        ))
-        dims = (px, py, li, lj)
-        blocks = sharded._put_blocks(
-            sharded._scatter_blocks(rhs, *dims), grid_sharding(mesh))
-        return sharded._gather_blocks(np.asarray(mapped(blocks)), *dims,
-                                      params.shape)
-
-    got_jnp = run(False)
-    got_pl = run(True)
-    assert not np.allclose(got_jnp[1:-1, 1:-1], 0.0)  # cycle did something
-    np.testing.assert_allclose(got_pl[1:-1, 1:-1], got_jnp[1:-1, 1:-1],
-                               rtol=1e-6, atol=1e-6)
 
 
 def _count_ppermutes(jaxpr) -> int:
@@ -215,10 +158,10 @@ def test_sweep_loop_has_no_collectives():
     assert _count_ppermutes(jaxpr.jaxpr) == 0
 
 
-@pytest.mark.parametrize("method", ["rb_sor", "pallas_sor"])
+@pytest.mark.parametrize("method", ["rb_sor"])
 def test_solve_sharded_deep_matches_oracle(method):
-    """End-to-end: the sharded solve with the deep-halo inner (jnp and
-    per-shard Pallas kernel) meets the 1e-4 oracle contract."""
+    """End-to-end: the sharded solve with the deep-halo inner meets the
+    1e-4 oracle contract."""
     from navierstokes_parallel_tpu import oracle
     from navierstokes_parallel_tpu.utils.io import tolerance_errors
 
@@ -293,47 +236,3 @@ def test_sharded_mg_smoother_uses_deep_halos():
     jaxpr = jax.make_jaxpr(mapped)(spec, spec)
     # extend(p): 4 ppermutes + extend(rhs): 4; the sweep loop body: 0.
     assert _count_ppermutes(jaxpr.jaxpr) == 8
-
-
-def test_pallas_route_falls_back_when_ext_block_exceeds_vmem(monkeypatch):
-    """use_pallas on a too-large local block must silently take the jnp
-    extended-block route (same math) instead of failing to compile the
-    whole-block VMEM kernel on real hardware."""
-    params = _params(32)
-    calls = []
-    real = deep_halo._ext_sweeps_call
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
-
-    monkeypatch.setattr(deep_halo, "_ext_sweeps_call", spy)
-    rng = np.random.default_rng(5)
-    rhs = np.zeros(params.shape, np.float32)
-    rhs[1:-1, 1:-1] = rng.standard_normal((32, 32)).astype(np.float32)
-
-    want = _run_deep_inner(params, rhs, 4, use_pallas=True)
-    assert calls, "small block should use the kernel"
-
-    calls.clear()
-    monkeypatch.setattr(deep_halo, "ext_block_fits_vmem",
-                        lambda shape, **kw: False)
-    got = _run_deep_inner(params, rhs, 4, use_pallas=True)
-    assert not calls, "oversized block must not call the kernel"
-    np.testing.assert_allclose(got[1:-1, 1:-1], want[1:-1, 1:-1],
-                               rtol=1e-5, atol=1e-7)
-
-
-def test_ext_vmem_gate_matches_measured_mosaic_liveness():
-    """Pin the gate against the measured v5e compile failure
-    (artifacts/repro_2048_sharded.json step_half): a 2048x1024 shard's
-    2080x1056 ext block demanded 127.73 MB of scoped VMEM (~14.5 live
-    block buffers) and deterministically failed Mosaic compilation, while
-    1024^2 shards (1056^2 ext) compiled and won the round-4 route race on
-    the real chip.  The gate must refuse the former and keep the latter."""
-    assert not deep_halo.ext_block_fits_vmem((2080, 1056))
-    assert deep_halo.ext_block_fits_vmem((1056, 1056))
-    # The compile limit the call will request must stay under physical
-    # VMEM (128 MB on v5e) for every shape the gate admits.
-    per = deep_halo._ext_per_array_bytes((1056, 1056))
-    assert deep_halo.EXT_KERNEL_LIVE_ARRAYS * per < 128 * 1024 * 1024

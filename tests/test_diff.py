@@ -3,7 +3,7 @@
 Every gradient is validated against central finite differences of the
 SAME float64 forward computation — the strictest check available for an
 adjoint implementation (reference has no analogue; diff.py is a
-beyond-reference TPU-native capability).
+beyond-reference capability).
 """
 
 import jax

@@ -66,7 +66,7 @@ def test_ensemble_members_actually_differ(params):
 
 def test_ensemble_rejects_pallas_method(params):
     members = _members(params, 2)
-    with pytest.raises(ValueError, match="cannot batch the Pallas"):
+    with pytest.raises(ValueError, match="cannot batch the CUDA SOR kernel"):
         solve_ensemble(params, stack_states(members),
                        pressure_method="pallas_sor")
 

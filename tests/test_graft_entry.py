@@ -1,7 +1,6 @@
 """The driver entry points (__graft_entry__) must work in any environment:
 `entry()` compiles single-chip; `dryrun_multichip(n)` must self-provision a
-virtual CPU mesh when fewer than n real devices are visible (the round-1
-driver gate failed exactly there, MULTICHIP_r01.json)."""
+virtual CPU mesh when fewer than n CPU devices are visible."""
 
 import sys
 import os

@@ -5,7 +5,7 @@ synthetic signals, and end-to-end shedding runs — the square cylinder
 (exact geometry, cheap) asserts onset + a sustained limit cycle + a
 Strouhal band, and the Schäfer-Turek circle asserts the staircase
 cylinder's St against the published 2D-2 band with a documented
-resolution allowance (the fine-grid TPU numbers live in
+resolution allowance (the fine-grid numbers live in
 artifacts/karman_strouhal.csv)."""
 
 import jax.numpy as jnp
@@ -79,7 +79,7 @@ def test_schafer_turek_circle_strouhal_and_forces():
     cl_max in [0.99, 1.01], dp in [2.46, 2.50] (Schäfer & Turek 1996,
     table 4).  At 10 cells/D the staircase disk measures St 0.261,
     cd_max 3.64, cl_max 0.64, dp 2.32, converging first-order toward
-    the bands (the resolution study is the TPU artifact,
+    the bands (the resolution study is the recorded artifact,
     artifacts/karman_strouhal.csv).  The asserted windows around the
     coarse-grid values catch a dead wake, a wrong normalization (u_max
     vs u_mean), a broken masked solver, or a sign/face error in the
@@ -112,7 +112,7 @@ def test_schafer_turek_circle_strouhal_and_forces():
     # 10 cells/D its probe rings (1.2h/2.2h off the wall) span a good
     # fraction of the boundary layer, so it reads systematically low —
     # the goldens pin that coarse-grid behavior; the two estimators
-    # converge toward each other on the TPU ladder
+    # converge toward each other on the recorded ladder
     # (artifacts/karman_strouhal.csv).
     assert co["cd_s_max"] == pytest.approx(2.8473, rel=0.03), co
     assert co["cl_s_max"] == pytest.approx(0.5553, rel=0.03), co

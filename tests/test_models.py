@@ -147,7 +147,7 @@ def test_channel_methods_agree_and_from_rest_develops():
 
 def test_channel_oracle_contract():
     """The 1e-4 comparator contract (reference notebook) holds on the
-    channel step too: float32 TPU-path solve vs the float64 NumPy oracle."""
+    channel step too: float32 device-path solve vs the float64 NumPy oracle."""
     from navierstokes_parallel_tpu import oracle, solve
 
     prm = _channel(8, T=0.05, max_it=2000, dtype="float64")

@@ -117,7 +117,6 @@ def test_geometry_validation():
 
 def test_method_and_backend_gating():
     from navierstokes_parallel_tpu.ops import sor
-    from navierstokes_parallel_tpu.ops.pallas import momentum_kernel
     from navierstokes_parallel_tpu.parallel import sharded
     from navierstokes_parallel_tpu.parallel.topology import make_grid_mesh
     import jax.numpy as jnp
@@ -129,7 +128,6 @@ def test_method_and_backend_gating():
         with pytest.raises(ValueError, match="obstacle|does not support"):
             sor.solve_pressure(z, z, prm, method=bad)
     assert sor.default_method(prm) == "rb_sor"
-    assert not momentum_kernel.usable(prm)
     # Round 4: the shard_map backend RUNS obstacle domains via the masked
     # deep-halo rb_sor inner (tests/test_sharded_obstacles.py); only the
     # unmasked operators still reject.

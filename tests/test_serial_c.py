@@ -1,5 +1,5 @@
 """Native C serial backend tests: exact parity with the Python oracle and
-the reference tolerance contract vs the TPU path."""
+the reference tolerance contract vs the device path."""
 
 import shutil
 import subprocess

@@ -210,8 +210,8 @@ def test_sharded_methods_require_x64():
 
 
 def test_rfft_lowering_probe_falls_back(monkeypatch):
-    """If the rfft butterfly fails to lower (a real TPU failure mode the
-    single-chip race try/excepts), the sharded pencil route must fall back
+    """If the rfft butterfly fails to lower (a backend failure mode the
+    probe compile catches), the sharded pencil route must fall back
     to matmul instead of aborting the whole solve compile."""
     def boom(x):
         raise RuntimeError("FFT unsupported size (simulated)")
@@ -230,7 +230,7 @@ def test_rfft_lowering_probe_falls_back(monkeypatch):
 def test_sharded_fft_precision_knob():
     """fft_precision plumbs into the pencil matmul transforms too: the
     solve still meets the contract (on CPU Precision is accuracy-neutral,
-    so this pins plumbing; the TPU A/B measures the trade)."""
+    so this pins plumbing; the trade itself is measured on the card)."""
     prm = _params(fft_precision="default")
     mesh = topology.make_grid_mesh(8, prm.i_max, prm.j_max)
     with fftmod_route_forced(False):

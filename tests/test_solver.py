@@ -1,4 +1,4 @@
-"""End-to-end solver tests: TPU-path vs the float64 serial oracle, under the
+"""End-to-end solver tests: device path vs the float64 serial oracle, under the
 reference's serial-as-oracle pattern and 1e-4 tolerance contract
 (colab-runner.ipynb; SURVEY.md §3.3/§4)."""
 
@@ -66,7 +66,7 @@ def test_oscillating_lid_problem():
 
 
 def test_float32_close_to_float64(small_params):
-    """The TPU-default dtype must stay within the tolerance contract of the
+    """The default float32 dtype must stay within the tolerance contract of the
     float64 path on short runs (SURVEY.md §7 'hard parts': f32 plan)."""
     prm64 = small_params
     prm32 = prm64.replace(dtype="float32")

@@ -46,7 +46,7 @@ def test_kinetic_energy_decay():
 
 def test_oracle_contract_problem4():
     """The 1e-4 comparator contract (reference notebook) holds on the
-    free-slip box step: f32 TPU-path solve vs the f64 NumPy oracle
+    free-slip box step: f32 device-path solve vs the f64 NumPy oracle
     (oracle.py grew the free-slip BCs too)."""
     from navierstokes_parallel_tpu import oracle
 
